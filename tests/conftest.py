@@ -21,6 +21,13 @@ import jax
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: runs a hand-written CUDA kernel; the test skips itself where "
+        "no CUDA device is present")
+
+
 @pytest.fixture(scope="session", autouse=True)
 def _x64_off():
     jax.config.update("jax_enable_x64", False)
