@@ -9,11 +9,15 @@ script exits non-zero without a result line:
 1. card   — name, power limit, torch/CUDA versions; TF32 off for every f32
             comparison.
 2. build  — ``nvcc`` for every kernel source at once, with ptxas's
-            registers, shared memory and spills.
+            registers, shared memory and spills (none allowed in the GEMMs).
 3. B1     — the probe-moment kernel against its plain version (ragged
             sizes, one element, NaN/Inf, entropy, the main path's shapes).
 4. B2     — the flash-attention kernel against its plain version (the
             reference's FA_CASES, ragged shapes, the main path's shapes).
+4b. gemm  — the cache-blocked (B3) and panel-streaming (B4) GEMM kernels
+            against their plain version: the reference's GEMM_SHAPES in
+            f32 and bf16, a non-square shape per schedule, and the case
+            study's 16384 x 16384 x 256 f32 at each of its blockings.
 5. main   — qwen3-14b at full width (40 layers, bf16, random weights from
             a seed) served by ``Engine.generate`` at 4 x 512 and 1 x 384
             prompts, 32 new tokens each: launch counts asserted against
@@ -21,11 +25,18 @@ script exits non-zero without a result line:
             the plan fingerprint must equal the JAX package's.
 6. smoke  — the SMOKE config in f32 on the card against the same on the
             CPU: tokens equal, counters and logits close.
-7. timing — each kernel at the main path's shapes beside its bound, its
-            plain version and, for attention, PyTorch's SDPA: device time
-            per call from profiler traces (inputs rotated through more than
-            the L2 cache), and the kernel's time per call from Python
-            (CUDA events); the device's idle share in prefill and decode.
+7. case   — the second path: the paper's GEMM case study
+            (``repro_torch.case_study.main``) at 16384 x 16384 x 256 f32,
+            three implementations, exhaustive and multiplexed, 500 calls
+            each: B3/B4 launches per run equal the calls, B1 launches equal
+            what the compiled plans give; then a profiler trace of one
+            monitored call per implementation (device time, idle share).
+8. timing — each kernel at its path's shapes beside its bound, its plain
+            version and, where one exists, the PyTorch call that computes
+            the same (SDPA, ``torch.matmul``): device time per call from
+            profiler traces (inputs rotated through more than the L2
+            cache), and the kernel's time per call from Python (CUDA
+            events); the device's idle share in prefill and decode.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi prints them, and ``{"ok": true, ...}``.
@@ -49,9 +60,14 @@ BF16_FLOPS = 989e12             # dense tensor-core bf16
 F32_FLOPS = 67e12               # f32 outside the tensor cores
 L2_BYTES = 50 * 2**20
 SOURCES = {"probe_moments": "src/repro_torch/csrc/probe_reduce.cu",
-           "flash_attention": "src/repro_torch/csrc/flash_attn.cu"}
+           "flash_attention": "src/repro_torch/csrc/flash_attn.cu",
+           "cache_blocked_matmul": "src/repro_torch/csrc/gemm.cu",
+           "panel_streaming_matmul": "src/repro_torch/csrc/gemm.cu"}
 REPLACES = {"probe_moments": "src/repro/kernels/probe_reduce.py:89",
-            "flash_attention": "src/repro/kernels/flash_attn.py:29"}
+            "flash_attention": "src/repro/kernels/flash_attn.py:29",
+            "cache_blocked_matmul": "src/repro/kernels/gemm.py:42",
+            "panel_streaming_matmul": "src/repro/kernels/gemm.py:92"}
+CASE_MNK = (16384, 16384, 256)  # repro_torch.case_study.SIZES["cuda"]
 FA_CASES = [  # tests/test_kernels.py FA_CASES + ragged shapes
     (2, 128, 128, 4, 4, 64, True, 0),
     (2, 128, 128, 4, 2, 64, True, 0),
@@ -89,6 +105,15 @@ def card(torch):
     say("card", f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
+    from repro_torch.kernels import gemm
+
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    say("card", f"max SM clock {clock}; the GEMM cost model's CLOCK_HZ "
+        f"{gemm.CLOCK_HZ / 1e9:.2f} GHz, PEAK_FLOPS {gemm.PEAK_FLOPS / 1e12:.0f} "
+        f"TFLOP/s f32, HBM_BW {gemm.HBM_BW / 1e12:.2f} TB/s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say("card", "TF32 off for matmul and cuDNN (f32 comparisons are f32)")
@@ -99,7 +124,7 @@ def build_kernels():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    logs = build.build(["probe_reduce", "flash_attn"])
+    logs = build.build(["probe_reduce", "flash_attn", "gemm"])
     say("build", f"nvcc for {sorted(logs)} in "
         f"{time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}")
     for name, log in logs.items():
@@ -108,6 +133,9 @@ def build_kernels():
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
         say("build", f"{name}: registers {regs}, static smem bytes {smem}, "
             f"spill-store bytes {spills}")
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", logs["gemm"])
+    check(bool(spills) and not any(int(x) for x in spills),
+          f"ptxas reports spills in the GEMM kernels: {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -215,9 +243,59 @@ def parity_b2(torch, dev):
     return worst
 
 
+GEMM_TOL = 2e-4  # the reference's f32 TOL; bf16 products are exact in f32
+
+
+def parity_gemm(torch, dev):
+    """B3 and B4 against ``matmul_plain`` (f32 ``torch.matmul``, TF32 off):
+    within rtol 2e-4 and atol 2e-4 * sqrt(k), sums in another order."""
+    from repro_torch import case_study as cs
+    from repro_torch.kernels import gemm, ops
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [(s, shape, (128, 128, 128), dt) for s in gemm.SCHEDULES
+             for shape in ((128, 128, 128), (256, 128, 384), (512, 256, 128),
+                           (128, 512, 256))
+             for dt in (torch.float32, torch.bfloat16)]
+    for dt in (torch.float32, torch.bfloat16):
+        cases.append(("cache_blocked", (512, 384, 192), (256, 128, 64), dt))
+        cases.append(("panel_streaming", (384, 768, 160), (128, 256, 256), dt))
+    for impl, cfg in cs.IMPLS.items():
+        cases.append((cfg["schedule"], CASE_MNK,
+                      (cfg["bm"], cfg["bn"], cfg.get("bk", 256)),
+                      torch.float32))
+    worst = {}
+    for schedule, (m, n, k), (bm, bn, bk), dt in cases:
+        a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        b = torch.randn(k, n, generator=gen, device=dev).to(dt)
+        got = ops.matmul(a, b, schedule, bm=bm, bn=bn, bk=bk)
+        want = gemm.matmul_plain(a, b)
+        err = (got - want).abs().max().item()
+        bad = ((got - want).abs()
+               > GEMM_TOL * math.sqrt(k) + GEMM_TOL * want.abs()).sum().item()
+        name = f"{schedule} {m}x{n}x{k} at {(bm, bn, bk)} {dt}"
+        check(bad == 0, f"gemm {name}: {bad} elements out of tolerance, "
+              f"max abs err {err}")
+        worst[schedule] = max(worst.get(schedule, 0.0), err)
+        say("gemm", f"{name}: max abs err {err:.3g}")
+        del got, want
+    say("gemm", f"{len(cases)} cases within rtol {GEMM_TOL} and atol "
+        f"{GEMM_TOL} * sqrt(k); max abs err {worst}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # 5: the main path
 # ---------------------------------------------------------------------------
+
+def kernel_sweeps(plan):
+    """B1 launches of one probe under ``plan``: its sweeps that ask for a
+    channel the shape does not give (NUMEL alone launches nothing)."""
+    from repro_torch.kernels import probe_reduce as pr
+
+    return sum(1 for sw in plan.sweeps
+               if set(sw.channels) - set(pr.STATIC_CHANNELS))
+
 
 def expected_launches(spec, n_layers, sq):
     """Kernel launches of one prefill and one decode step, from the compiled
@@ -228,8 +306,8 @@ def expected_launches(spec, n_layers, sq):
 
     def sweeps(scope, tensors):
         ctx = spec.context(scope)
-        return len(plan_lib.compile_scope_plans(
-            ctx, frozenset(tensors)).plans[0].sweeps)
+        return kernel_sweeps(plan_lib.compile_scope_plans(
+            ctx, frozenset(tensors)).plans[0])
 
     flash = sq > 256
     prefill = (sweeps("embed", {"out"}) + sweeps("logits", {"out"})
@@ -257,14 +335,23 @@ def sync_strict(torch, fn):
     return run
 
 
-def reset_counts(fa, pr):
-    fa.flash_attention.launches = 0
-    pr.probe_moments.launches = 0
+def reset_counts(fa, pr, gemm):
+    for fn in (pr.probe_moments, fa.flash_attention,
+               gemm.cache_blocked_matmul, gemm.panel_streaming_matmul):
+        fn.launches = 0
+
+
+def counts(fa, pr, gemm):
+    return {fn.__name__: fn.launches
+            for fn in (pr.probe_moments, fa.flash_attention,
+                       gemm.cache_blocked_matmul,
+                       gemm.panel_streaming_matmul)}
 
 
 def main_path(torch, dev):
     from repro_torch.configs import model_config
     from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import gemm
     from repro_torch.kernels import probe_reduce as pr
     from repro_torch.models import Arch
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -291,11 +378,11 @@ def main_path(torch, dev):
 
     # launches of one monitored prefill and one decode step, attested apart
     with torch.inference_mode():
-        reset_counts(fa, pr)
+        reset_counts(fa, pr, gemm)
         (cache, logits), ms = eng._prefill(eng.mon.init(), params,
                                            {"tokens": prompts["4x512"]})
         per_prefill = (pr.probe_moments.launches, fa.flash_attention.launches)
-        reset_counts(fa, pr)
+        reset_counts(fa, pr, gemm)
         tok = eng._sample(logits, gen)
         eng._decode(ms, params, cache, tok)
         per_decode = (pr.probe_moments.launches, fa.flash_attention.launches)
@@ -313,14 +400,13 @@ def main_path(torch, dev):
     eng._decode = sync_strict(torch, eng._decode)
     eng._sample = sync_strict(torch, eng._sample)
     torch.cuda.synchronize()
-    reset_counts(fa, pr)
+    reset_counts(fa, pr, gemm)
     stats, outs = {}, {}
     for key, toks in prompts.items():
         out, st = eng.generate({"tokens": toks})
         outs[key], stats[key] = out, st
-    launches = {"probe_moments": pr.probe_moments.launches,
-                "flash_attention": fa.flash_attention.launches}
-    want = {"probe_moments": 0, "flash_attention": 0}
+    launches = counts(fa, pr, gemm)
+    want = dict.fromkeys(launches, 0)
     for key in prompts:
         e = expected_launches(eng.spec, cfg.n_layers, int(key.split("x")[1]))
         want["probe_moments"] += e["b1_prefill"] + 32 * e["b1_decode"]
@@ -479,7 +565,88 @@ def smoke_parity(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# 7: timing
+# 7: the second path, the GEMM case study
+# ---------------------------------------------------------------------------
+
+def case_study_path(torch, dev):
+    """The case study as ``case_study.main()`` runs it on the card, each of
+    its six runs driven here with every kernel count set to 0 just before
+    it and read just after, then ``case_study.report``."""
+    from repro_torch import case_study as cs
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import gemm
+    from repro_torch.kernels import probe_reduce as pr
+
+    m, n, k = cs.SIZES["cuda"]
+    n_calls, period = cs.RUNS[False]
+    t0 = time.perf_counter()
+    results = []
+    for impl in cs.IMPLS:
+        for multiplexed in (False, True):
+            reset_counts(fa, pr, gemm)
+            r = cs.run_impl(impl, n_calls, m, n, k, multiplexed, period, dev)
+            r["launches"] = counts(fa, pr, gemm)
+            ctx = cs.spec(multiplexed, period).contexts[0]
+            plans = plan_lib.compile_scope_plans(
+                ctx, frozenset({"out", "refills", "hbm", "mxu", "flops",
+                                "stalls"})).plans
+            sets = [(i // period) % ctx.n_sets if multiplexed else 0
+                    for i in range(n_calls)]
+            r["b1_expected"] = sum(kernel_sweeps(plans[j]) for j in sets)
+            results.append(r)
+    max_err = cs.report(results, period)
+    total = dict.fromkeys(counts(fa, pr, gemm), 0)
+    for r in results:
+        schedule = cs.IMPLS[r["impl"]]["schedule"]
+        want = {"probe_moments": r["b1_expected"], "flash_attention": 0,
+                "cache_blocked_matmul": 0, "panel_streaming_matmul": 0}
+        want[f"{schedule}_matmul"] = r["calls"]
+        check(r["launches"] == want,
+              f"case {r['impl']}/{r['mode']} launches {r['launches']} != {want}")
+        for key, v in r["launches"].items():
+            total[key] += v
+        for sid, v in r["estimates"].items():
+            check(math.isfinite(v), f"case {r['impl']} {sid} estimate {v}")
+        say("case", f"{r['impl']}/{r['mode']}: {r['calls']} calls in "
+            f"{r['wall_s']} s ({1e3 * r['wall_s'] / r['calls']:.3f} ms per "
+            f"call from the host clock); launches {r['launches']} (expected "
+            f"{want})")
+    say("case", f"all six runs in {time.perf_counter() - t0:.1f} s; B3/B4 "
+        f"launches per run equal the calls and B1 launches equal the "
+        f"compiled plans'; max sampling error {max_err:.3f} %")
+    summary = {f"{r['impl']}/{r['mode']}": {
+        "ms_per_call_host": 1e3 * r["wall_s"] / r["calls"],
+        "estimates": r["estimates"]} for r in results}
+    return total, summary, max_err
+
+
+def traces_case(torch, dev):
+    """Device time, kernels and idle share of one monitored DGEMM call of
+    the case study per implementation, every event on (the exhaustive
+    spec), from a profiler trace of ten calls."""
+    from repro_torch import case_study as cs
+
+    m, n, k = CASE_MNK
+    gen = torch.Generator(device=dev).manual_seed(9)
+    a = torch.randn(m, k, generator=gen, device=dev)
+    b = torch.randn(k, n, generator=gen, device=dev)
+    out = {}
+    for impl, cfg in cs.IMPLS.items():
+        step, _ = cs.dgemm_step(cfg, m, n, k, cs.spec(False), dev)
+        state = {"ms": step.monitor.init()}
+
+        def call(i, step=step, state=state):
+            state["c"], state["ms"] = step(a * (1.0 + 0.01 * i), b,
+                                           state["ms"])
+
+        call(0)  # warm
+        out[impl] = device_idle(torch, call, 10, f"case_{impl}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8: timing
 # ---------------------------------------------------------------------------
 
 def eager_ms(torch, fn, args_list, reps):
@@ -499,15 +666,29 @@ def eager_ms(torch, fn, args_list, reps):
 
 
 def device_ms(torch, fn, args_list, reps, label):
-    """Mean device time per call (ms): the union of the device intervals of
-    ``reps`` calls in a profiler trace, host gaps excluded.  Calls rotate
-    through ``args_list``, more bytes than the L2 cache holds, so each call
-    reads its inputs from device memory."""
+    """Mean device time per call (ms) from a profiler trace of ``reps``
+    calls, host gaps excluded: for each kernel name, its mean duration
+    times its launches per call.  The profiler can drop records of a
+    session (9 of 10 GEMM launches kept, on an H100), and a mean over the
+    records it kept is still whole.  Calls rotate through
+    ``args_list``, more bytes than the L2 cache holds, so each call reads
+    its inputs from device memory."""
     for a in args_list:
         fn(*a)
     dev, _ = profile_device(
         torch, lambda i: fn(*args_list[i % len(args_list)]), reps, label)
-    return busy_span_us(dev)[0] / 1e3 / reps
+    by_name: dict = {}
+    for s, e, _, name in dev:
+        by_name.setdefault(name, []).append(e - s)
+    per_call, kept, want = 0.0, 0, 0
+    for durs in by_name.values():
+        n = round(len(durs) / reps)
+        per_call += n * sum(durs) / len(durs)
+        kept, want = kept + len(durs), want + n * reps
+    if kept < want:
+        say("timing", f"{label}: the profiler kept {kept} of {want} device "
+            f"records; means over the kept ones")
+    return per_call / 1e3
 
 
 def rotation(nbytes):
@@ -579,6 +760,42 @@ def timing_b2(torch, dev):
             "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
 
+def timing_gemm(torch, dev):
+    """Each case-study blocking at 16384 x 16384 x 256 f32 beside the 2.05
+    ms bound, the plain version and ``torch.matmul`` (TF32 off)."""
+    from repro_torch import case_study as cs
+    from repro_torch.kernels import gemm, ops
+
+    m, n, k = CASE_MNK
+    nbytes = 4 * (m * k + k * n + m * n)  # A and B read once, C written once
+    flops = 2.0 * m * n * k
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    sets = [(torch.randn(m, k, device=dev), torch.randn(k, n, device=dev))
+            for _ in range(rotation(nbytes))]
+    plain = device_ms(torch, gemm.matmul_plain, sets, 10, "gemm_plain")
+    lib = device_ms(torch, torch.matmul, sets, 10, "gemm_torch_matmul")
+    out = {}
+    for impl, cfg in cs.IMPLS.items():
+        kw = {kk: v for kk, v in cfg.items() if kk != "schedule"}
+
+        def fn(a, b, schedule=cfg["schedule"], kw=kw):
+            return ops.matmul(a, b, schedule, **kw)
+
+        ms = device_ms(torch, fn, sets, 10, f"gemm_{impl}")
+        eager = eager_ms(torch, fn, sets, 10)
+        say("timing", f"{impl} ({cfg['schedule']} {kw}) {m}x{n}x{k} f32: "
+            f"{ms:.4f} ms on the device, {eager:.4f} ms per call from Python "
+            f"(bound {bound:.4f} ms by {by}: {flops / 1e9:.1f} GFLOP at 67 "
+            f"TFLOP/s f32; {nbytes / 1e6:.1f} MB would take "
+            f"{t_bytes * 1e3:.4f} ms), plain {plain:.4f} ms, torch.matmul "
+            f"{lib:.4f} ms on the device")
+        out[impl] = {"ms": ms, "eager_ms": eager, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -589,6 +806,7 @@ def main() -> int:
     build_kernels()
     err_b1 = parity_b1(torch, dev)
     err_b2 = parity_b2(torch, dev)
+    err_gemm = parity_gemm(torch, dev)
     eng, prompts, launches, stats = main_path(torch, dev)
     trace = traces(torch, eng, prompts)
     t_b1 = timing_b1(torch, dev)
@@ -601,12 +819,30 @@ def main() -> int:
         "decode_ms_per_token": {k: 1e3 * v["decode_per_tok_s"]
                                 for k, v in stats.items()},
         "trace": trace}))
+    case_launches, case, case_err = case_study_path(torch, dev)
+    case_trace = traces_case(torch, dev)
+    say("case", json.dumps({"mnk": CASE_MNK, "max_sampling_err_pct": case_err,
+                            "runs": case, "trace": case_trace}))
+    t_gemm = timing_gemm(torch, dev)
+    from repro_torch import case_study as cs
+
+    by_impl = {schedule: {impl: t_gemm[impl]["ms"] for impl, cfg
+                          in cs.IMPLS.items() if cfg["schedule"] == schedule}
+               for schedule in ("cache_blocked", "panel_streaming")}
     kernels = []
-    for name, err, t in (("probe_moments", err_b1, t_b1),
-                         ("flash_attention", err_b2, t_b2)):
+    for name, err, t in (
+            ("probe_moments", err_b1, t_b1),
+            ("flash_attention", err_b2, t_b2),
+            ("cache_blocked_matmul", err_gemm["cache_blocked"],
+             {**t_gemm["atlas_default"],
+              "ms_by_impl": by_impl["cache_blocked"]}),
+            ("panel_streaming_matmul", err_gemm["panel_streaming"],
+             {**t_gemm["goto"], "ms_by_impl": by_impl["panel_streaming"]})):
+        paths = {"serve": launches[name], "case_study": case_launches[name]}
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": launches[name], "max_abs_err": err, **t})
+                        "launches": sum(paths.values()),
+                        "launches_by_path": paths, "max_abs_err": err, **t})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -375,8 +375,8 @@ def _vmem_refills(x):
 
 
 @register("MXU_PASSES", EXTENSIVE, moments=("sum",), finalize=_sum_finalizer,
-          doc="number of matrix-unit passes (tensor-core tiles on Hopper) — "
-              "analogue of SIMD_INST_RETIRED")
+          doc="number of 128^3 tile products (the TPU's matrix-unit pass; "
+              "no Hopper instruction) — analogue of SIMD_INST_RETIRED")
 def _mxu_passes(x):
     return torch.sum(_f32(x))
 

@@ -8,7 +8,9 @@ the JAX package, so it also runs on a machine that has only PyTorch:
 
 (``--noconftest``: the suite's conftest imports JAX.)  Tolerances: f32
 sums in another order (probe moments: rtol 1e-5, atol 1e-4; attention:
-atol 2e-5), bf16 attention output within 2e-2 (a few bf16 ulps at 1.0).
+atol 2e-5; GEMM: the reference's f32 tolerance, rtol 2e-4 and atol
+2e-4 * sqrt(k), for bf16 operands too, whose products are exact in f32),
+bf16 attention output within 2e-2 (a few bf16 ulps at 1.0).
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.core import context, monitor
 from repro_torch.kernels import flash_attn as fa
+from repro_torch.kernels import gemm
 from repro_torch.kernels import ops
 from repro_torch.kernels import probe_reduce as pr
 
@@ -35,6 +38,16 @@ FA_CASES = [
     (1, 200, 200, 4, 2, 64, True, 0),
     (2, 77, 301, 2, 1, 128, True, 48),
     (1, 33, 20, 2, 2, 16, True, 0),
+]
+GEMM_CASES = [
+    # schedule, (m, n, k), blocking: tests/test_kernels.py GEMM_SHAPES at
+    # 128, then one non-square shape per schedule at the case study's
+    # blockings
+    *[(s, shape, (128, 128, 128)) for s in gemm.SCHEDULES
+      for shape in ((128, 128, 128), (256, 128, 384), (512, 256, 128),
+                    (128, 512, 256))],
+    ("cache_blocked", (512, 384, 192), (256, 128, 64)),
+    ("panel_streaming", (384, 768, 160), (128, 256, 256)),
 ]
 
 
@@ -92,6 +105,10 @@ def test_tensor_moments_uses_the_kernel_at_every_size(cuda):
         d = ops.tensor_moments(torch.ones(n, device=cuda), ("sum",))
         assert pr.probe_moments.launches == before + 1
         assert float(d["sum"]) == n and d["numel"] == n
+    before = pr.probe_moments.launches
+    d = ops.tensor_moments(torch.ones(1 << 20, device=cuda), ("numel",))
+    assert pr.probe_moments.launches == before  # nothing to sweep
+    assert d["numel"] == 1 << 20
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,win", FA_CASES)
@@ -146,3 +163,40 @@ def test_monitor_on_card_matches_cpu(cuda):
     a, b = run(torch.device("cpu")), run(cuda)
     assert torch.equal(a.calls, b.calls) and torch.equal(a.samples, b.samples)
     torch.testing.assert_close(a.values, b.values.cpu(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("schedule,shape,blk", GEMM_CASES)
+def test_gemm_kernels_match_plain(cuda, schedule, shape, blk, dtype):
+    m, n, k = shape
+    bm, bn, bk = blk
+    a = _normal((m, k), 4).to(cuda, dtype)
+    b = _normal((k, n), 5).to(cuda, dtype)
+    kernel = (gemm.cache_blocked_matmul if schedule == "cache_blocked"
+              else gemm.panel_streaming_matmul)
+    before = kernel.launches
+    got = ops.matmul(a, b, schedule, bm=bm, bn=bn, bk=bk)
+    assert kernel.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    torch.testing.assert_close(got, gemm.matmul_plain(a, b), rtol=2e-4,
+                               atol=2e-4 * np.sqrt(k))
+
+
+def test_gemm_schedules_agree(cuda):
+    a = _normal((256, 256), 6).to(cuda)
+    b = _normal((256, 256), 7).to(cuda)
+    c1 = ops.matmul(a, b, "cache_blocked", bm=128, bn=128, bk=128)
+    c2 = ops.matmul(a, b, "panel_streaming", bm=128, bn=128)
+    torch.testing.assert_close(c1, c2, rtol=0, atol=2e-4)
+
+
+def test_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    a = _normal((256, 256), 8).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm.cache_blocked_matmul(a.t(), a, bm=128, bn=128, bk=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        gemm.panel_streaming_matmul(torch.zeros(128, 384, device=cuda),
+                                    torch.zeros(384, 256, device=cuda),
+                                    bm=128, bn=256)
+    with pytest.raises(TypeError):
+        gemm.cache_blocked_matmul(a, a.bfloat16(), bm=128, bn=128, bk=128)
